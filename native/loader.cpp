@@ -3,7 +3,7 @@
 // Plays the runtime role the reference delegates to its ROS nodelet pipeline
 // (launch/kinect_normal.launch: image decode -> metric convert -> organized
 // cloud, running concurrently with the tracker): a C++ thread pool decodes
-// frames AHEAD of the consumer so disk IO + PNG inflate overlap with TPU
+// frames AHEAD of the consumer so disk IO + PNG inflate overlap with device
 // compute, handing Python dense float buffers through a bounded ring.
 //
 // PNG subset decoded here (all that TUM sequences use):

@@ -1,4 +1,4 @@
-"""Render-loss pose refinement demo (round 4, VERDICT r3 item 7).
+"""Render-loss pose refinement demo.
 
 Uses the differentiable raycaster END-TO-END: gradient descent (adam,
 cosine-decayed lr) on a depth+normal render loss — gradients flowing
@@ -10,7 +10,7 @@ CPU-friendly (64^3 grid, 96x72 strided renders):
 
     python scripts/demo_render_refine.py
 
-Expected shape of the result (BENCHMARKS round-4 batch H): the GN
+Expected shape of the result: the GN
 tracker converges faster per step and from mid-size perturbations, but
 only consumes point measurements; the render-loss refinement works from
 images alone (no backprojection), converges from comparable basins at

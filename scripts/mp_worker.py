@@ -1,7 +1,7 @@
 """Multi-PROCESS SPMD worker: one rank of a 2-process CPU 'pod'.
 
 Executes the jax.distributed path that single-process virtual-mesh tests
-cannot reach (VERDICT r3 missing #2): `jax.distributed.initialize()` (the
+cannot reach: `jax.distributed.initialize()` (the
 code behind `cli.py --multihost`), a mesh spanning BOTH processes' devices,
 the sharded brickmajor fuse + zero-relayout tracking step across the
 process boundary (ppermute halo crosses ranks), and

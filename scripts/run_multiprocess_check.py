@@ -1,9 +1,10 @@
-"""Record MULTIPROC_r{N}.json: proof the REAL multi-process path ran.
+"""Check that the REAL multi-process path runs and matches one process.
 
 Launches the 2-process CPU 'pod' (scripts/mp_worker.py — jax.distributed
 + Gloo, SPMD fuse/track across the process boundary, cross-process
 marching-cubes halo collective), compares against the single-process dense
-reference, and writes a machine-readable summary next to MULTICHIP_r*.json.
+reference, and prints a machine-readable summary (also written to out.json
+when a path is given).
 
 Usage: python scripts/run_multiprocess_check.py [out.json]
 """
@@ -45,6 +46,7 @@ def main(out_path: str) -> int:
     if any(p.returncode != 0 for p in procs):
         result["error"] = "".join(logs)[-2000:]
         _write(out_path, result)
+        print(json.dumps(result, indent=1))
         return 1
 
     import jax
@@ -95,12 +97,12 @@ def main(out_path: str) -> int:
 
 
 def _write(path, result):
+    if not path:
+        return
     with open(path, "w") as f:
         json.dump(result, f, indent=1)
         f.write("\n")
 
 
 if __name__ == "__main__":
-    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        REPO, "MULTIPROC_r04.json")
-    sys.exit(main(out))
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else None))

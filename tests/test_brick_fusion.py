@@ -138,30 +138,6 @@ def test_bricked_overflow_reported_and_grid_still_valid():
     assert float(gb.W.sum()) > 0
 
 
-def test_pallas_merge_matches_xla_merge():
-    """The in-place active-brick Pallas kernel (interpret mode on CPU) must
-    produce the XLA scatter+merge tail's numbers exactly."""
-    for fuse_color in (False, True):
-        cfg = FusionConfig(fuse_color=fuse_color)
-        gx = empty_grid(PARAMS)
-        gp = empty_grid(PARAMS)
-        for pose in POSES:
-            pts, normals, rgb = _frame(pose)
-            rgb_in = rgb if fuse_color else None
-            gx, _ = fuse_frame_bricked(
-                gx, pose, pts, normals, rgb_in, params=PARAMS, cam=CAM,
-                cfg=cfg, bs=BS, cap=128, merge="xla")
-            gp, sp = fuse_frame_bricked(
-                gp, pose, pts, normals, rgb_in, params=PARAMS, cam=CAM,
-                cfg=cfg, bs=BS, cap=128, merge="pallas", cap_act=256,
-                interpret=True)
-            assert int(sp.overflow_active) == 0
-        for name in TSDF_FIELDS:
-            np.testing.assert_allclose(
-                np.asarray(getattr(gx, name)), np.asarray(getattr(gp, name)),
-                atol=1e-5, err_msg=f"{name} color={fuse_color}")
-
-
 def test_rows_merge_matches_xla_merge():
     """The row-granular gather/scatter-set tail must produce the XLA
     scatter+accumulator tail's numbers exactly (incl. FREE-brick updates,

@@ -1,4 +1,4 @@
-"""CI-sized guard for the real-data integration path (VERDICT r1 item 2).
+"""CI-sized guard for the real-data integration path.
 
 The reference's de-facto integration test is its trajectory vs the bundled
 TUM groundtruth file (sdf_reconstruction.cpp:4-17 writes trajectory.txt;
@@ -6,7 +6,7 @@ rgbd_dataset_freiburg1_plant-groundtruth.txt is the oracle). No dataset
 ships in this image, so data.make_sequence renders a multi-object scene to
 the TUM on-disk layout (16-bit depth PNGs at the /5000 scale, rgb PNGs,
 listings, groundtruth.txt) and this test replays it through the FULL
-ingestion chain the big 120-frame TPU run uses: native C++ PNG loader ->
+ingestion chain a full-size run uses: native C++ PNG loader ->
 TUMDataset association -> CLI -> runner (bilateral + normals + track +
 fuse) -> trajectory writer -> Umeyama ATE.
 """
@@ -86,8 +86,8 @@ def test_cli_dataset_eval_end_to_end(sequence, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("family", ["desk", "plant"])
 def test_scene_family_tracks_end_to_end(family, tmp_path, monkeypatch):
-    """Scene-breadth CI guard (VERDICT r2 next-item 3): every scene family
-    the big TPU accuracy matrix runs over must track through the full CLI
+    """Scene-breadth CI guard: every scene family
+    the full-size accuracy matrix runs over must track through the full CLI
     chain — cluttered desk-scale geometry and thin-structure plant — with
     ATE far under the 96^3 voxel size (the same bar as the tabletop
     guard above)."""

@@ -492,3 +492,48 @@ def test_sharded_raycast_matches_single(mesh):
                 f"{name}: {np.count_nonzero(~np.asarray(same))} mismatches "
                 f"(with_color={with_color})")
         assert np.asarray(r_sh.hit).sum() > 300
+
+
+def test_runner_distributed_brickmajor_pyramid(mesh):
+    """With a coarse-to-fine pyramid the sharded runner must track the way
+    the single-device runner does (same levels, same per-level configs) —
+    per frame and chunked — so one preset gives one trajectory on one
+    device or a mesh."""
+    from tracking_sdf_tpu.config import PipelineConfig
+    from tracking_sdf_tpu.pipeline import Reconstruction
+
+    fcfg = FusionConfig(mode="brickmajor", brick_shape=(2, 8, 16),
+                        brick_cap=768, fuse_color=False)
+    cfg = PipelineConfig(
+        grid=PARAMS, tracking=TrackingConfig(max_iterations=20,
+                                             min_iterations=2),
+        fusion=fcfg, trajectory_path=None, bilateral_filter=False,
+        pyramid_levels=(2, 1))
+    r_sh = Reconstruction(CAM, cfg, initial_pose=TRUE_POSE, mesh=mesh)
+    r_ch = Reconstruction(CAM, cfg, initial_pose=TRUE_POSE, mesh=mesh)
+    r_ch.chunk_phase_metrics = False
+    r_1d = Reconstruction(CAM, cfg, initial_pose=TRUE_POSE)
+    depths = []
+    for i in range(5):
+        ang = 0.06 * i
+        eye = (1.5 * np.sin(ang), -1.5 * np.cos(ang), 0.25)
+        depths.append(np.asarray(render_scene_depth(
+            SCENE, CAM, look_at(eye, (0.0, 0.0, 0.0)))))
+    iters_sh, iters_1d = [], []
+    for i, d in enumerate(depths):
+        iters_sh.append(r_sh.process_frame(d, timestamp=float(i))
+                        .gn_iterations)
+        iters_1d.append(r_1d.process_frame(d, timestamp=float(i))
+                        .gn_iterations)
+    r_ch.process_frame(depths[0], timestamp=0.0)
+    r_ch.process_chunk(np.stack(depths[1:]),
+                       timestamps=[float(i) for i in range(1, 5)])
+    # the fine level's iteration count (min_iterations applies there)
+    assert iters_sh == iters_1d
+    for r in (r_sh, r_ch):
+        np.testing.assert_allclose(np.asarray(r.pose.t),
+                                   np.asarray(r_1d.pose.t), atol=1e-4)
+        np.testing.assert_allclose(np.asarray(r.pose.R),
+                                   np.asarray(r_1d.pose.R), atol=1e-4)
+    for r in (r_sh, r_ch, r_1d):
+        r.close()

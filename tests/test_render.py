@@ -200,7 +200,7 @@ def test_raycast_empty_skip_equivalence():
 
 
 def test_marching_cubes_chunked_matches_oneshot():
-    """Slab-chunked meshing (bounded peak HBM for 512^3) == the one-shot
+    """Slab-chunked meshing (bounded peak device memory for 512^3) == the one-shot
     mesher, triangles in identical order."""
     from tracking_sdf_tpu.render.marching_cubes import marching_cubes_chunked
 
@@ -323,7 +323,7 @@ def test_raycast_temporal_warm_start():
     assert np.quantile(d, 0.995) < 2e-3, np.quantile(d, 0.995)
     assert (d > 0.01).mean() < 0.005
     # the march gets shorter (this tiny scene's cold march is already
-    # ~11 steps; the TPU-scale win is measured in BENCHMARKS r4)
+    # ~11 steps; the full-size win is not measured on the H100)
     assert float(np.asarray(warm_a.steps)[both].mean()) < \
         0.75 * float(np.asarray(cold_a.steps)[both].mean())
 

@@ -1,8 +1,8 @@
-"""tracking_sdf_tpu — TPU-native differentiable TSDF camera tracking & reconstruction.
+"""tracking_sdf_tpu — differentiable TSDF camera tracking & reconstruction in JAX.
 
 A from-scratch JAX/XLA/Pallas/pjit framework with the capabilities of the
 reference C++/ROS implementation of Bylow et al., RSS 2013
-(`mees/tracking_sdf`): weighted TSDF depth+color fusion into an HBM-resident
+(`mees/tracking_sdf`): weighted TSDF depth+color fusion into a device-resident
 voxel grid, direct Gauss-Newton camera tracking against the SDF, marching-cubes
 meshing, and (new capability) a differentiable sphere-tracing raycaster —
 designed SPMD-first over `jax.sharding.Mesh` device meshes.

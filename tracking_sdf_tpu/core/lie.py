@@ -23,9 +23,10 @@ import jax.numpy as jnp
 
 _SMALL = 1e-8
 
-# 3x3 pose algebra must NOT drop to bf16 on the TPU MXU — a default-precision
-# matmul there costs ~1e-3 absolute error in rotation entries, which dwarfs
-# the tracker's 1e-3 convergence threshold. These matmuls are tiny; full f32.
+# 3x3 pose algebra must stay full float32: at default precision a GPU may
+# run a float32 matmul in TF32 (10-bit mantissa), ~1e-3 relative error in
+# rotation entries, which dwarfs the tracker's 1e-3 convergence threshold.
+# These matmuls are tiny; HIGHEST costs nothing.
 _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -97,7 +98,8 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     sinc, mcosc, _ = _theta_coeffs(theta_sq)
     K = so3_hat(w)
     eye = jnp.eye(3, dtype=w.dtype)
-    # K @ K == w w^T - theta^2 I : outer product stays on the VPU in full f32
+    # K @ K == w w^T - theta^2 I : an elementwise outer product, full f32
+    # without any matmul precision setting
     KK = w[..., :, None] * w[..., None, :] - theta_sq[..., None, None] * eye
     return eye + sinc[..., None, None] * K + mcosc[..., None, None] * KK
 

@@ -388,7 +388,8 @@ def generate(root: str, n_frames: int = 120, width: int = 640,
 
     @jax.jit
     def render(R, t):
-        d_world = jnp.einsum("ij,hwj->hwi", R, dirs_cam)
+        d_world = jnp.einsum("ij,hwj->hwi", R, dirs_cam,
+                             precision=jax.lax.Precision.HIGHEST)
         origins = jnp.broadcast_to(t, d_world.shape)
         z, idx = scene.intersect_argmin(origins, d_world)
         pts = origins + z[..., None] * d_world

@@ -4,7 +4,7 @@ native/loader.cpp is a threaded PNG-decode + prefetch pipeline (the runtime
 role of the reference's ROS nodelet image chain, launch/kinect_normal.launch)
 that overlaps disk IO and decode with device compute. The shared library is
 built on demand with `make -C native` (g++ + zlib, both in the base image);
-everything degrades gracefully to the PIL path in data.tum when the
+everything degrades gracefully to the numpy codec (data.png) when the
 toolchain or library is unavailable.
 """
 from __future__ import annotations
@@ -63,7 +63,7 @@ def load_library(build_if_missing: bool = True):
                 # the rebuild FAILED but an old .so exists: loading it is
                 # the stale-binary hazard the always-make policy exists to
                 # prevent — load it (graceful degradation) but say so,
-                # with the captured compiler output (ADVICE r4)
+                # with the captured compiler output
                 import warnings
                 warnings.warn(
                     "native loader rebuild failed; loading PRE-EXISTING "

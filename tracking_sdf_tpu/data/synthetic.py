@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 
 from tracking_sdf_tpu.config import GridParams
@@ -136,12 +137,11 @@ def render_scene_depth(
     z-depth. Misses are NaN, mirroring Kinect NaN holes.
     """
     dirs_cam, _ = pixel_rays(cam)
-    dirs_world = jnp.einsum("ij,hwj->hwi", pose.R, dirs_cam)
+    dirs_world = jnp.einsum("ij,hwj->hwi", pose.R, dirs_cam,
+                            precision=jax.lax.Precision.HIGHEST)
     origins = jnp.broadcast_to(pose.t, dirs_world.shape)
     t = scene.intersect(origins, dirs_world)
     if noise_sigma > 0.0:
-        import jax
-
         assert key is not None
         t = t + noise_sigma * jax.random.normal(key, t.shape, dtype=t.dtype)
     return t

@@ -13,7 +13,8 @@ layout:
 
 Decoding uses the native C++ loader (tracking_sdf_tpu.data.native) when its
 shared library is built — a threaded prefetching pipeline that overlaps PNG
-decode with device compute — and falls back to PIL.
+decode with device compute — and falls back to the numpy codec in
+tracking_sdf_tpu.data.png.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from tracking_sdf_tpu.data.png import read_png, write_png
 from tracking_sdf_tpu.pipeline.trajectory import Trajectory, associate, read_trajectory
 
 DEPTH_SCALE = 5000.0  # TUM convention: png_value / 5000 = meters
@@ -111,7 +113,7 @@ class TUMDataset:
                raw: bool = False) -> Iterator[TUMFrame]:
         """Iterate frames through the native prefetching loader when built
         (C++ thread pool overlapping PNG decode with device compute); falls
-        back to the PIL path otherwise.
+        back to the numpy codec otherwise.
 
         ``raw=True`` yields TUM wire formats (depth uint16 with 0 = hole,
         rgb uint8) — 6x fewer host->device bytes for chunked processing,
@@ -140,20 +142,20 @@ class TUMDataset:
 def load_depth_png(path: str) -> np.ndarray:
     """16-bit depth PNG -> float32 meters with NaN holes (value 0 = no data).
 
-    Uses the native C++ decoder when built (~3-4x faster than PIL — this is
-    the INDEXED access path, which --realtime pacing uses to skip dropped
-    frames, so its per-frame host cost counts as processing lag; ADVICE
-    r4). Falls back to PIL."""
+    Uses the native C++ decoder when built — this is the INDEXED access
+    path, which --realtime pacing uses to skip dropped frames, so its
+    per-frame host cost counts as processing lag. Falls back to the numpy
+    codec."""
     from tracking_sdf_tpu.data import native
 
     if native.available():
         try:
             return native.decode_depth(path)
         except (ValueError, RuntimeError):
-            pass  # corrupt/odd PNG variant: let PIL try
-    from PIL import Image
-
-    raw = np.asarray(Image.open(path), dtype=np.float32)
+            pass  # corrupt/odd PNG variant: let the numpy codec try
+    raw = read_png(path).astype(np.float32)
+    if raw.ndim == 3:
+        raw = raw[..., 0]
     depth = raw / DEPTH_SCALE
     depth[raw == 0] = np.nan
     return depth
@@ -168,10 +170,12 @@ def load_rgb_png(path: str) -> np.ndarray:
             return native.decode_rgb(path)
         except (ValueError, RuntimeError):
             pass
-    from PIL import Image
-
-    img = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32)
-    return img / 255.0
+    img = read_png(path).astype(np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] in (1, 2):  # grey or grey+alpha
+        img = np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3] / 255.0
 
 
 def write_synthetic_tum(
@@ -183,8 +187,6 @@ def write_synthetic_tum(
     dt: float = 1.0 / 30.0,
 ) -> None:
     """Write arrays as an on-disk TUM sequence (test fixture / exporter)."""
-    from PIL import Image
-
     os.makedirs(os.path.join(root, "depth"), exist_ok=True)
     if rgbs is not None:
         os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
@@ -196,13 +198,12 @@ def write_synthetic_tum(
         # by up to 1/DEPTH_SCALE (0.2 mm), visible in sub-mm roundtrips
         raw = np.clip(np.round(raw), 0, 65535).astype(np.uint16)
         name = f"depth/{stamp:.6f}.png"
-        # uint16 array -> Pillow infers mode I;16 (explicit mode= is deprecated)
-        Image.fromarray(raw).save(os.path.join(root, name))
+        write_png(os.path.join(root, name), raw)
         depth_lines.append(f"{stamp:.6f} {name}")
         if rgbs is not None:
             img = np.clip(rgbs[i] * 255.0, 0, 255).astype(np.uint8)
             rname = f"rgb/{stamp:.6f}.png"
-            Image.fromarray(img).save(os.path.join(root, rname))
+            write_png(os.path.join(root, rname), img)
             rgb_lines.append(f"{stamp:.6f} {rname}")
         if poses is not None:
             t, q = poses[i]

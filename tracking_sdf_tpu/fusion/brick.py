@@ -1,9 +1,8 @@
-"""Brick-compacted TSDF fusion — the TPU-fast path.
+"""Brick-compacted TSDF fusion — the fast path.
 
-The dense path (fuse.fuse_frame) gathers a pixel row for EVERY voxel; on TPU
-that random gather runs at ~8 ns/row, so a 256^3 fuse costs ~130 ms of pure
-gather. This path reduces gathered rows by ~10-30x with EXACT per-brick
-classification:
+The dense path (fuse.fuse_frame) gathers a pixel row for EVERY voxel (16.7M
+random gathers per 256^3 frame). This path reduces gathered rows by
+~10-30x with EXACT per-brick classification:
 
   OUT   brick entirely behind the camera or off-image -> every voxel skipped
         (exactly the dense path's per-voxel skip rules: pz is affine in the
@@ -55,6 +54,10 @@ from tracking_sdf_tpu.core.lie import Pose
 from tracking_sdf_tpu.fusion.fuse import weighting
 from tracking_sdf_tpu.grid.grid import TSDFGrid
 
+# float32 contractions stay float32 on every backend (a GPU may otherwise
+# run them in TF32): the classification bounds below must be exact.
+_HI = jax.lax.Precision.HIGHEST
+
 _TILE = 8  # zeta mip base tile, pixels
 
 
@@ -62,9 +65,8 @@ class FuseStats(NamedTuple):
     n_full: jnp.ndarray  # () int32 — bricks classified FULL
     overflow: jnp.ndarray  # () int32 — FULL bricks dropped (cap too small)
     n_free: jnp.ndarray  # () int32
-    # merge='pallas': active bricks dropped; merge='rows' and brickmajor:
-    # FREE bricks dropped (cap_free too small). Either way: capacity
-    # overflow in the merge tail, reported never silent.
+    # merge='rows' and brickmajor: FREE bricks dropped (cap_free too
+    # small) — capacity overflow in the merge tail, reported never silent.
     overflow_active: jnp.ndarray = jnp.int32(0)
     # hierarchical classification (FusionConfig.hier_classify): mixed
     # super-bricks beyond cap_mixed — their child bricks are DROPPED for
@@ -124,14 +126,13 @@ def _compact_vals(flags, vals, cap, fill):
     """Stable compaction: the values of the first ``cap`` set flags, in
     order, padded with ``fill`` — exactly ``jnp.nonzero(flags, size=cap,
     fill_value=fill)[0]`` semantics when ``vals = arange`` (including the
-    keep-FIRST-cap behavior on overflow), but ~1.7x faster on TPU.
+    keep-FIRST-cap behavior on overflow), without the full-length sort.
 
     XLA lowers nonzero(size) through a full-length sort; this is a
     two-level cumsum (segment counts + within-segment ranks — both highly
-    parallel on the VPU) plus one scalar scatter, measured 2.6 vs 4.3 ms
-    at N = 262,144 / cap = 38,912 (scripts/probe_compaction.py). The
-    scatter is the remaining cost (~8 ns/row thin-scatter floor), which is
-    why hierarchical classification — shrinking N itself — compounds."""
+    parallel) plus one scalar scatter. The scatter is the remaining cost,
+    which is why hierarchical classification — shrinking N itself —
+    compounds. Not re-measured against nonzero on the H100."""
     n = flags.shape[0]
     seg = 128 if n % 128 == 0 else (64 if n % 64 == 0 else 1)
     f2 = flags.reshape(-1, seg).astype(jnp.int32)
@@ -343,8 +344,7 @@ def _brick_corners_cam(params, pose, bs, dtype, nbi, i_offset):
 
     p = Rt (c - t) is SEPARABLE per world axis, so the 8 corners are sums of
     three per-axis contribution tables (nb, 2, 3) — one fused broadcast-add
-    kernel instead of an 8-iteration Python loop of channelwise matvecs
-    (which cost ~3 ms of the classify stage at 32k bricks; measured).
+    kernel instead of an 8-iteration Python loop of channelwise matvecs.
 
     ``nbi``/``i_offset`` support SLAB grids (SPMD): the local slab's bricks
     start at global voxel i = i_offset (may be traced).
@@ -365,7 +365,7 @@ def _brick_corners_cam(params, pose, bs, dtype, nbi, i_offset):
     Ax = xs[..., None] * Rt[:, 0]  # (nbi, 2, 3)
     Ay = ys[..., None] * Rt[:, 1]
     Az = zs[..., None] * Rt[:, 2]
-    base = -jnp.matmul(Rt, pose.t[:, None])[:, 0]  # (3,)
+    base = -jnp.matmul(Rt, pose.t[:, None], precision=_HI)[:, 0]  # (3,)
     sel = np.array([[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)])
     cx = Ax[:, sel[:, 0], :]  # (nbi, 8, 3)
     cy = Ay[:, sel[:, 1], :]
@@ -383,7 +383,7 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     descends only into MIXED (class-FULL) super-bricks: fine-brick proofs
     + id compaction run over ``cap_mixed * factor^3`` slots instead of all
     NB bricks (3.4x fewer at 512^3, where ~73% of super-bricks are provably
-    OUT/OCCLUDED — scripts/probe_classify_breakdown.py).
+    OUT/OCCLUDED on the bench trajectory).
 
     EXACTNESS (same conservative-exact contract as classify_bricks):
       * super OUT: pz is affine in the voxel index and the corner hull
@@ -459,7 +459,7 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     Ax = axis_tab(nbi, bi, params.width, params.origin[0], 0, i_offset)
     Ay = axis_tab(nbj, bj, params.height, params.origin[1], 1)
     Az = axis_tab(nbk, bk, params.depth, params.origin[2], 2)
-    base = -jnp.matmul(Rt, pose.t[:, None])[:, 0]
+    base = -jnp.matmul(Rt, pose.t[:, None], precision=_HI)[:, 0]
     la = jnp.arange(f, dtype=jnp.int32)
     fi = si[:, None] * f + la  # (S, f) fine indices per axis
     fj = sj[:, None] * f + la
@@ -593,15 +593,15 @@ def classify_bricks(params, pose, points_cam, normals_cam, cam, bs, dtype,
     Shared by the flat-layout (fuse_frame_bricked) and brick-major
     (fusion.brickmajor) paths; proofs in the module docstring.
 
-    SHARE-MODE CAVEAT (ADVICE r2): the FREE/OCCLUDED ray-footprint bounds
+    SHARE-MODE CAVEAT: the FREE/OCCLUDED ray-footprint bounds
     (e_minus/e_plus in _zeta_mip) assume each voxel reads its OWN pixel
     (du, dv in [0,1)). With pixel_share > 1 a FULL-brick voxel fuses
     against the group-center pixel up to share/2 voxels away, so the
     proofs are strictly exact only at share 1 — consistent with share
     mode itself being a flagged approximation (FusionConfig.pixel_share);
     FREE/OCCLUDED treatment remains EXACT w.r.t. the share-1 semantics
-    the equivalence tests pin. ``share_margin`` (round 4,
-    FusionConfig.share_safe_classify -> share_classify_margin) closes the
+    the equivalence tests pin. ``share_margin``
+    (FusionConfig.share_safe_classify -> share_classify_margin) closes the
     gap exactly: widening delta by the group's world radius x ||n||
     bounds the share-induced distance shift (v-c)·n, restoring the proof
     chain under share semantics (pinned by
@@ -610,9 +610,8 @@ def classify_bricks(params, pose, points_cam, normals_cam, cam, bs, dtype,
     mode; plain OUT is geometry-only. OCCLUDED bricks — provably zero
     update at every voxel (deep behind every candidate surface, d < -delta,
     or over invalid pixels) — fold into class 0: at 512^3 they were 39-40%
-    of all FULL bricks (the shadow volume behind surfaces plus NaN shadows;
-    scripts/probe_512_composition.py), each paying full gather+math+merge
-    cost for nothing.
+    of all FULL bricks (the shadow volume behind surfaces plus NaN
+    shadows), each paying full gather+math+merge cost for nothing.
     """
     h, w_img = points_cam.shape[:2]
     if mip is None:
@@ -630,10 +629,10 @@ def _pixel_table(points_cam, normals_cam, rgb, fuse_color, dtype,
     point-to-plane (d = -(s - p·n)), the observed depth z_y for
     point-to-point (d = s - p_z directly).
 
-    C is 4 (geometry) or 8 (color) — PADDED-POWER-OF-TWO ROWS ARE LOAD-
-    BEARING: the per-voxel random gather runs at ~4.3 ns/row for 8-float
-    rows but 7.7-21.7 ns/row for 9-float rows (measured; the lowering's
-    row copies straddle 32-byte units). Hence:
+    C is 4 (geometry) or 8 (color): power-of-two rows keep every gathered
+    row inside aligned 32-byte units (9-float rows measured 2-5x slower
+    per row on the machine this was first tuned on; not measured on the
+    H100). Hence:
       * no `finite` flag channel — an invalid pixel (NaN point/normal,
         reference sdf.cpp:260) is encoded with the sign that drives the
         canonical distance to -inf (+inf for point-to-plane's negated s,
@@ -679,15 +678,15 @@ def _full_brick_updates(brick_class, pix, pose, params, cam, cfg, bs, cap,
     """Compact the FULL bricks and compute their (w, w*d, ...) update sums.
 
     The heart of brick-compacted fusion: ONE random pixel-row gather per
-    FULL-brick voxel (the measured TPU bottleneck, ~8 ns/row) + exact dense
-    per-voxel math. Returns
+    FULL-brick voxel + exact dense per-voxel math. Returns
         (upd [C arrays, each (cap, bi, bj, bk)], full_ids (cap,),
          valid_brick (cap,), n_full (),
          (vi (cap, bi), vj (cap, bj), fbk (cap,)))
     with padded slots masked invalid (their upd rows are all-zero). The
     channels stay UNSTACKED so a consumer that merges them elementwise
     (brickmajor) lets XLA fuse the update math straight into the merge — a
-    stacked (cap, BV, C) U costs ~75 MB of HBM round-trip at cap 6144."""
+    stacked (cap, BV, C) U is a ~75 MB device-memory round trip at cap
+    6144."""
     bi, bj, bk = bs
     nbi, nbj, nbk = nb3
     h, w_img = hw
@@ -737,9 +736,8 @@ def _full_brick_updates(brick_class, pix, pose, params, cam, cfg, bs, cap,
     flat_pix = jnp.clip(iv, 0, h - 1) * w_img + jnp.clip(iu, 0, w_img - 1)
 
     # Gather with a 128-wide index minor dim regardless of brick shape: the
-    # take's lowering vectorizes over the index minor dim, so bk < 128 wastes
-    # lanes (measured: (8,8,8) bricks ran 3x slower end-to-end with bk=8-wide
-    # indices; reshaping the same elements to 128-wide restores the fast path).
+    # layout was chosen for another backend's gather lowering (bk=8-wide
+    # indices ran 3x slower there); its effect on the H100 is not measured.
     sk = getattr(cfg, "pixel_share", 1)
     sj = getattr(cfg, "pixel_share_j", 1)
     if bk % sk:
@@ -752,7 +750,7 @@ def _full_brick_updates(brick_class, pix, pose, params, cam, cfg, bs, cap,
         # group-CENTER voxel's pixel row; the per-row-bound gather shrinks
         # by the same factor. Per-voxel projection, masks, and distance
         # math below stay per-voxel.
-        # NOTE (negative A/B, BENCHMARKS.md round 3): temporal share
+        # NOTE (negative A/B): temporal share
         # DITHERING — cycling the representative voxel through the group
         # positions across frames so the running mean averages the bias
         # out — was implemented and measured WORSE on the 120-frame
@@ -767,17 +765,14 @@ def _full_brick_updates(brick_class, pix, pose, params, cam, cfg, bs, cap,
         lane = 128 if nrow % 128 == 0 else bk // sk
         g = jnp.take(pix, fp.reshape(nrow // lane, lane), axis=0)
         # Broadcast the shared pixel rows up to per-voxel shape HERE.
-        # MEASURED (BENCHMARKS.md, TPU A/B 2026-08-19): keeping g factored
-        # (share dims size-1, broadcasting inside the arithmetic) looked
-        # like it should kill a ~100 MB HLO broadcast materialize, but the
-        # REAL kernel ran slower AT 256^3/share 2x2 — probe byte-counting
-        # is not a cost model; the explicit broadcast is what XLA schedules
-        # best there. At 512^3/share 4x4 the materialize is ~640 MB, so the
-        # balance may flip: FusionConfig.factored_share is the A/B escape
-        # hatch (numerically inert — cross-checked bit-for-bit on CPU); the
-        # TSDF_FACTORED_SHARE env var remains as a process-START probe knob
-        # only (trace-time read: NOT in the jit cache key, unlike the cfg
-        # field).
+        # Keeping g factored (share dims size-1, broadcasting inside the
+        # arithmetic) avoids a ~100 MB (256^3) to ~640 MB (512^3) broadcast
+        # materialize, but XLA may schedule the explicit broadcast better;
+        # which wins on the H100 is not measured.
+        # FusionConfig.factored_share is the A/B switch (numerically inert —
+        # cross-checked bit-for-bit on CPU); the TSDF_FACTORED_SHARE env var
+        # remains as a process-START probe knob only (trace-time read: NOT
+        # in the jit cache key, unlike the cfg field).
         if (getattr(cfg, "factored_share", False)
                 or os.environ.get("TSDF_FACTORED_SHARE") == "1"):
             g = g.reshape(cap, bi, bj // sj, 1, bk // sk, 1, -1)
@@ -836,8 +831,8 @@ def _full_brick_updates(brick_class, pix, pose, params, cam, cfg, bs, cap,
 
 @partial(
     jax.jit,
-    static_argnames=("params", "cam", "cfg", "bs", "cap", "merge", "cap_act",
-                     "cap_free", "interpret"),
+    static_argnames=("params", "cam", "cfg", "bs", "cap", "merge",
+                     "cap_free"),
     donate_argnames=("grid",),
 )
 def fuse_frame_bricked(
@@ -853,9 +848,7 @@ def fuse_frame_bricked(
     bs: Tuple[int, int, int] = (8, 8, 32),
     cap: int = 1024,
     merge: str = "xla",
-    cap_act: Optional[int] = None,
     cap_free: Optional[int] = None,
-    interpret: bool = False,
     i_offset=0,  # global voxel-i of grid.D[0] — traced OK (SPMD slabs)
 ) -> Tuple[TSDFGrid, FuseStats]:
     """Brick-compacted fusion; exact dense semantics for geometry, color in
@@ -864,14 +857,12 @@ def fuse_frame_bricked(
     ``merge`` selects the tail:
       * "xla": scatter-add (w, w*d, ...) into dense accumulators + one
         full-grid merge pass. Robust; cost has a full-grid floor (~1.2 GB of
-        HBM traffic at 256^3 with color).
+        device-memory traffic at 256^3 with color).
       * "rows": gather the touched grid rows, merge in-register, scatter-SET
         back (in-place on the donated buffers) — same numbers, traffic
         proportional to active bricks only. FREE bricks get a second
         row-pass bounded by ``cap_free`` (default = cap; overflow reported
-        in FuseStats.overflow_active).
-      * "pallas": in-place active-brick kernel (fusion.pallas_merge);
-        ``cap_act`` bounds active bricks (default 4 * cap)."""
+        in FuseStats.overflow_active)."""
     dtype = grid.D.dtype
     h, w_img = points_cam.shape[:2]
     m = params.m
@@ -895,7 +886,6 @@ def fuse_frame_bricked(
         brick_class, pix, pose, params, cam, cfg, bs, cap, dtype,
         (nbi, nbj, nbk), i_offset, (h, w_img), fuse_color)
     U = jnp.stack(upd, axis=-1)  # (cap, bi, bj, bk, C)
-    NB = nbi * nbj * nbk
     C = U.shape[-1]
 
     stats = FuseStats(
@@ -903,35 +893,6 @@ def fuse_frame_bricked(
         overflow=jnp.maximum(n_full - cap, 0),
         n_free=jnp.sum((brick_class == 1).astype(jnp.int32)),
     )
-
-    if merge == "pallas":
-        from tracking_sdf_tpu.fusion.pallas_merge import merge_active_bricks
-
-        if cap_act is None:
-            cap_act = 4 * cap
-        is_active = brick_class.reshape(-1) > 0
-        n_active = jnp.sum(is_active.astype(jnp.int32))
-        act_ids = jnp.nonzero(is_active, size=cap_act, fill_value=0)[0][::-1]
-        # padding FIRST (see pallas_merge docstring): positions below
-        # pad_count read brick 0 with class PAD and write identical bytes
-        pad_count = jnp.maximum(cap_act - n_active, 0)
-        pos = jnp.arange(cap_act, dtype=jnp.int32)
-        cls_act = jnp.where(pos < pad_count, 0,
-                            brick_class.reshape(-1)[act_ids]).astype(jnp.int32)
-        # slot map: FULL brick id -> its row in U (cap = dummy zero row)
-        slot_map = jnp.full((NB,), cap, jnp.int32).at[full_ids].set(
-            jnp.arange(cap, dtype=jnp.int32), mode="drop")
-        slot_act = jnp.where(cls_act == 2, slot_map[act_ids], cap).astype(jnp.int32)
-        U_pad = jnp.concatenate(
-            [U, jnp.zeros((1,) + U.shape[1:], U.dtype)], axis=0)
-        grid_out = merge_active_bricks(
-            grid, U_pad, act_ids.astype(jnp.int32), cls_act, slot_act,
-            bs=bs, cap_act=cap_act, delta=params.delta,
-            fuse_color=fuse_color, interpret=interpret,
-        )
-        stats = stats._replace(
-            overflow_active=jnp.maximum(n_active - cap_act, 0))
-        return grid_out, stats
 
     if merge == "rows":
         return _merge_rows(
@@ -955,8 +916,8 @@ def fuse_frame_bricked(
     # ---- fused dense merge -------------------------------------------------
     # All elementwise merge math runs on FLAT (mi, m, m) arrays so the minor
     # (lane) dim is m, not bk: with compact bricks (bk=8) the 6-D
-    # (nbi,bi,nbj,bj,nbk,bk) view starves the VPU to bk/128 lane utilization
-    # on ~1.2 GB of full-grid traffic (measured 3x whole-fusion slowdown).
+    # (nbi,bi,nbj,bj,nbk,bk) view gives every vectorized op a minor dim of
+    # 8 over ~1.2 GB of full-grid traffic.
     # The per-voxel class is materialized by broadcast+reshape (free: the
     # reshape is contiguous) instead of keeping the 6-D view alive.
     cls_vox = jnp.broadcast_to(

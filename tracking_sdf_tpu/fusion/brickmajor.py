@@ -1,23 +1,22 @@
 """Brick-MAJOR TSDF fusion: compact-brick classification with a cheap merge.
 
-The flat-layout bricked path (fusion.brick) faces a shape trade-off measured
-in BENCHMARKS.md: COMPACT bricks like (8, 8, 8) classify far better (the
-FREE proof fires, ~2.9M FULL voxels vs 4.95M for (1, 8, 128) at 256^3 —
-1.7x fewer pixel-row gathers, the dominant fusion cost) but LOSE end-to-end
-because the merge tail writes k-runs of bk elements into the flat (m, m, m)
-grid: at bk = 8 that is ~365k 32-byte scatter rows at ~0.2 us/row (~70 ms),
-where (1, 8, 128)'s fat rows cost ~6 ms.
+The flat-layout bricked path (fusion.brick) faces a shape trade-off:
+COMPACT bricks like (8, 8, 8) classify far better (the FREE proof fires,
+~2.9M FULL voxels vs 4.95M for (1, 8, 128) at 256^3 — 1.7x fewer
+pixel-row gathers) but the merge tail then writes k-runs of only bk
+elements into the flat (m, m, m) grid: at bk = 8 that is ~365k 32-byte
+scatter rows per frame instead of a few thousand fat ones.
 
 This module removes the trade-off by changing the STORAGE layout: grid
 leaves live as (NB, BV) brick-row tables (one brick = BV = bi*bj*bk
 contiguous voxels = one fat row). The merge is then gather/merge/scatter of
-~n_full fat 2-KB rows — measured 1.14 ms/leaf for 7k bricks — independent
-of brick shape, so the classification-optimal compact brick wins outright.
+~n_full fat 2-KB rows, independent of brick shape, so the
+classification-optimal compact brick wins outright.
 
-Consumers that need the flat (m, m, m) layout (tracking interpolation,
-raycasting, meshing — contiguous k rows) get it from ONE relayout pass per
-fused frame (measured 5.3 ms at 256^3) which doubles as tracking's
-masked_view build (W <= 0 -> NaN), replacing that separate per-frame pass.
+Consumers that need the flat (m, m, m) layout (raycasting, meshing —
+contiguous k rows) get it from ONE relayout pass which doubles as the
+masked_view build (W <= 0 -> NaN); tracking reads the brick rows directly
+(brick_masked_view).
 Color leaves stay brick-major and are only relayouted on demand (mesh
 export / color rendering, ~1 Hz in the reference, sdf.cpp:317-391).
 
@@ -57,29 +56,27 @@ class BrickGrid(NamedTuple):
     the dense (m, m, m) grid via a pure reshape/transpose (to_dense).
 
     STORAGE SHAPE: each leaf is (NB, BV) — one fat row per brick (see
-    _row_w for the measured negative A/B on width-128 rows). The tracking
-    view's (NB, BV) -> (-1, 128) reshape IS a TPU tile relayout (T(8,128)
-    tilings differ, ~67 MB copy per frame at 256^3), but that one copy is
-    far cheaper than multiplying the per-row-cost-bound merge ops by
-    BV/128.
+    _row_w for the negative A/B on width-128 rows). The tracking view's
+    (NB, BV) -> (-1, 128) reshape is row-major-preserving; whether XLA
+    makes it a copy on the H100 is not measured.
 
     STORAGE INVARIANT: D holds NaN wherever W <= 0 (the masked-view
     encoding, grid/interp.masked_view) instead of the dense layout's "far"
     init value (sdf.cpp:28-34). Tracking's per-frame Dm relayout is then a
-    pure transpose of D — no W read, no elementwise mask (~1.6 ms/frame at
-    256^3). dense_from_brick_grid restores the reference's far value, so
+    pure transpose of D — no W read, no elementwise mask.
+    dense_from_brick_grid restores the reference's far value, so
     every dense-visible behavior (parity tests, checkpoints, meshing) is
     unchanged.
 
-    PACKED COLOR (round 5): the four color leaves (R, G, B, Wc) live in
-    ONE uint16-lane leaf ``C`` of shape (NB, 3*LV + LW) — block layout
+    PACKED COLOR: the four color leaves (R, G, B, Wc) live in ONE
+    uint16-lane leaf ``C`` of shape (NB, 3*LV + LW) — block layout
     [R | G | B | Wc] per row, each value bitcast to its uint16 lanes (LV =
-    BV * itemsize(value)/2, LW likewise for the weight dtype). Motivation
-    (BENCHMARKS round-5 batch B/D): the merge's gather/scatter cost is
-    per-ROW, nearly width-insensitive — 4 leaves x (gather + scatter) on
-    28672 rows cost ~31 ms standalone at 512^3 where ONE 4x-wide leaf
-    costs ~12 ms. Bitcasting (not dtype promotion) keeps every stored bit
-    identical to the unpacked layout for ANY value/weight dtype combo, so
+    BV * itemsize(value)/2, LW likewise for the weight dtype). Motivation:
+    one gather + one scatter of 4x-wide rows replaces four of each; it
+    paid where row operations were bound by their count, not their bytes
+    (not re-measured on the H100). Bitcasting (not dtype promotion) keeps
+    every stored bit identical to the unpacked layout for ANY value/weight
+    dtype combo, so
     fusion arithmetic is bitwise unchanged. D and W deliberately stay
     separate: D's standalone layout backs the zero-copy tracking view
     (brick_masked_view) and the Dm relayout — packing it would turn those
@@ -97,14 +94,12 @@ class BrickGrid(NamedTuple):
 def _row_w(bv: int) -> int:
     """Storage row width: one FAT row per brick (width BV).
 
-    MEASURED NEGATIVE A/B (BENCHMARKS.md): width-128 storage rows (row_w =
-    128 when BV % 128 == 0, making the tracking view a zero-op wrap of D)
-    dropped the headline 52 -> 16 fps on the TPU. The merge's gather and
-    scatter-set cost is per-ROW (~0.15-0.2 us/row, near-independent of row
-    width), so splitting each brick into R = BV/128 rows multiplied the
-    row count of every merge op by R (4x at BV = 512) — ~+45 ms/frame,
-    dwarfing the ~3-7 ms view-relayout it saved. Fat rows + the in-jit
-    reshape relayout for the tracking view is the measured optimum."""
+    Width-128 storage rows (row_w = 128 when BV % 128 == 0, making the
+    tracking view a zero-op wrap of D) multiply the row count of every
+    merge op by BV/128 (4x at BV = 512); where merge cost follows the row
+    count that loses far more than the view relayout saves, and it
+    measured a large loss on the machine this was first tuned on. Not
+    re-measured on the H100."""
     return bv
 
 
@@ -254,10 +249,9 @@ def brick_masked_view(
     """Zero-copy masked SDF view in brick order (a reshape, no transpose).
 
     Tracking interpolates directly from this (interp._corner_fetch_brick),
-    which removes the per-frame masked_dense_D relayout (~3 ms at 256^3)
-    from the hot loop. The (-1, 128) reshape is a TPU tile relayout when
-    BV != 128 — one fat->thin copy of D, which measured cheaper than
-    storing thin rows (see _row_w)."""
+    which removes the per-frame masked_dense_D relayout from the hot loop.
+    The (-1, 128) reshape is row-major-preserving; a backend may still
+    copy D for it when BV != 128 (see _row_w for why rows stay fat)."""
     if bgrid.D.shape[1] == 128:
         return BrickMaskedView(bgrid.D, params.m, bs)
     return BrickMaskedView(bgrid.D.reshape(-1, 128), params.m, bs)
@@ -294,17 +288,16 @@ def fuse_frame_brickmajor(
     emit_dm=True, a zero-copy BrickMaskedView when emit_dm="view" (the
     hot-loop configuration — tracking gathers corners brick-major, no
     relayout pass), or None. Donates bgrid: the merge scatter-sets rows in
-    place in HBM.
+    place in device memory.
 
     Geometry is exactly the dense path's math (same classifier + per-voxel
     updates as fuse_frame_bricked); color is fused in FULL (surface-band)
     bricks only — see fusion.brick docstring for why that loses nothing.
 
-    SATURATED-FREE SKIP (``sat`` — FusionConfig.sat_skip, round 5): with a
+    SATURATED-FREE SKIP (``sat`` — FusionConfig.sat_skip): with a
     max_weight clamp, a FREE brick's update converges to a bitwise no-op
     once W saturates (measured: exactly at frame max_weight for
-    from-empty bricks, no oscillation, f32 and bf16 —
-    scripts/probe_512_split_final.py groundwork). ``sat`` is a persistent
+    from-empty bricks, no oscillation, f32 and bf16). ``sat`` is a persistent
     (NB,) bool carried by the caller; when given, the function returns
     ``(bgrid, Dm, stats, sat')`` and:
       * FREE-classified bricks with sat=True are EXCLUDED from compaction
@@ -328,8 +321,7 @@ def fuse_frame_brickmajor(
     values upcast at the merge gather, new values round to bf16 only at
     the scatter-set. Storage quantization is ~0.4% of delta per
     running-average step (bf16 has 8 mantissa bits and |D| <= delta),
-    while the merge — the HBM-bandwidth-bound stage — moves 2/3 the
-    bytes."""
+    while the merge moves 2/3 the bytes."""
     dtype = jnp.promote_types(bgrid.D.dtype, jnp.float32)  # compute dtype
     h, w_img = points_cam.shape[:2]
     m = params.m

@@ -6,7 +6,7 @@ voxel exactly once", paper §IV-B — the opposite of raycasting), fetches its
 pixel's observed point/normal/color, and folds them into running weighted
 means. Where the C++ used `continue` for its skip rules (behind camera
 :247, off image :254, NaN :260, beyond truncation :280-283), this carries
-boolean masks — the TPU-native equivalent.
+boolean masks — the branch-free equivalent.
 
 Because the update is purely per-voxel (a gather from the small replicated
 image, never a scatter), sharding the grid over a device mesh axis makes
@@ -216,7 +216,7 @@ def fuse_frame(
     cam: PinholeCamera,
     cfg: FusionConfig = FusionConfig(),
 ) -> TSDFGrid:
-    """Fuse one observed frame into the grid. Donates `grid` (in-place in HBM)."""
+    """Fuse one observed frame into the grid. Donates `grid` (updated in place)."""
     pix = pixel_channels(points_cam, normals_cam, rgb, cfg, dtype=grid.D.dtype)
     return fuse_voxels(
         grid, pose, pix, points_cam.shape[:2], params=params, cam=cam, cfg=cfg

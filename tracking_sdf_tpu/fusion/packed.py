@@ -1,10 +1,9 @@
 """PACKED brick-major TSDF fusion: one array, one gather, one scatter.
 
 The brick-major path (fusion.brickmajor) stores six (NB, BV) leaves and
-merges them with six row-gathers + six scatter-sets. Measured at 256^3
-(BENCHMARKS.md): per-voxel update math ~5 ms + merge ~3.45 ms — the stage
-split shows XLA materializes the six update channels (~150 MB of HBM
-round-trip) between the math and the six scatter consumers, because sharing
+merges them with six row-gathers + six scatter-sets. A 256^3 stage split
+showed XLA materializing the six update channels (~150 MB of device-memory
+round trip) between the math and the six scatter consumers, because sharing
 the gathered pixel rows and the weight chain across six scatter fusions
 forces common-subexpression buffers.
 

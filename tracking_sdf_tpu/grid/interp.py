@@ -2,7 +2,7 @@
 
 Two families:
 
-* :func:`trilinear` / :func:`trilinear_with_grad` — the TPU-first default:
+* :func:`trilinear` / :func:`trilinear_with_grad` — the default:
   true trilinear interpolation with per-corner observation masking (W > 0)
   and renormalization, plus the exact ANALYTIC gradient w.r.t. the continuous
   voxel coordinate. Fully differentiable; one gather of 8 corners per query.
@@ -18,7 +18,7 @@ Two families:
 All functions take coords in CONTINUOUS VOXEL units (see
 grid.world_to_voxel) of shape (..., 3) and return values shaped (...,).
 Invalid queries return value 0 with valid=False — callers carry the mask
-(TPU-style) where the C++ used `continue`.
+(no data-dependent control flow) where the C++ used `continue`.
 """
 from __future__ import annotations
 
@@ -151,19 +151,14 @@ def _corner_fetch_rows(
 ) -> jnp.ndarray:
     """All 8 corner values vol[clip(base+off)] via width-128 row gathers.
 
-    TPU gather cost is per ROW, nearly independent of row width, and the
-    fast path needs a flat 2D (rows, width) table (3D-operand advanced
-    indexing measures 2x slower per row; see BENCHMARKS.md). The 8 cube
-    corners are 4 (i, j) pairs x 2 k-adjacent elements, so fetching 2
-    consecutive rows per pair (8 rows total) always covers both k lanes;
-    lane extraction is an iota-mask reduction (pure VPU, fused by XLA).
-
-    Row width: 128 measures FASTEST on hardware (3.28 ms/34k queries) —
-    counter to the narrow-row hypothesis: width-8 rows (8x32B) and a
-    4-row overlapped width-16 layout both measure ~3.8 ms, and width-32
-    overlapped 5.5 ms (scripts/probe_corner_fetch.py). The gather is
-    neither row-count- nor traffic-bound in this regime, so fewer/narrower
-    rows buy nothing; keep the lane-width rows.
+    The layout was tuned where gather cost was per ROW, nearly independent
+    of row width, and a flat 2D (rows, width) table beat 3D-operand
+    advanced indexing. The 8 cube corners are 4 (i, j) pairs x 2
+    k-adjacent elements, so fetching 2 consecutive rows per pair (8 rows
+    total) always covers both k lanes; lane extraction is an iota-mask
+    reduction fused by XLA. Width 128 measured fastest there against
+    width-8, -16 and -32 rows. None of this is measured on the H100,
+    where fetching 8 scalars per query is the plain alternative.
 
     Exactly equivalent to the clip-indexed per-corner gather for ALL inputs:
     both corner flat indices are computed with per-corner clipping, so
@@ -219,9 +214,8 @@ class BrickMaskedView:
 
     Purpose: tracking's corner fetch can gather straight from the fused
     brick grid — 8 row-gathers per query exactly like the flat-layout path
-    (gather cost is per row; see BENCHMARKS.md) — which removes the
-    per-frame Dm relayout transpose (~3 ms at 256^3) from the frame budget
-    entirely. The flat (m, m, m) view remains available on demand for
+    — which removes the per-frame Dm relayout transpose from the frame
+    budget entirely. The flat (m, m, m) view remains available on demand for
     raycasting/meshing via fusion.brickmajor.masked_dense_D.
 
     ``pitch`` is the flat-element stride between consecutive bricks' D rows
@@ -283,12 +277,12 @@ def _corner_fetch_brick(view: BrickMaskedView, base: jnp.ndarray) -> jnp.ndarray
     jb, dj = cj // bj, cj % bj
     kb, dk = ck // bk, ck % bk
     F = ((ib * nbj + jb) * nbk + kb) * view.pitch + (di * bj + dj) * bk + dk
-    # row width from the view itself (round 5): a FAT-row view (width BV,
-    # e.g. 512) gathers straight from the brick grid's storage rows with
-    # ZERO relayout — the (NB, BV) -> (-1, 128) reshape is logically
-    # row-major-preserving but physically a TPU tile-relayout copy
-    # (~5.3 ms/frame at 512^3, probe_dw_pack). Gather cost is per-ROW
-    # (width-insensitive); only the iota lane-select widens.
+    # row width from the view itself: a FAT-row view (width BV, e.g. 512)
+    # gathers straight from the brick grid's storage rows with ZERO
+    # relayout — the (NB, BV) -> (-1, 128) reshape is logically
+    # row-major-preserving but may be a physical copy; only the iota
+    # lane-select widens. Which width is faster on the H100 is not
+    # measured.
     row_w = view.rows.shape[1]
     row = F // row_w
     lane = F % row_w
@@ -305,30 +299,23 @@ def masked_view(D: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:
     interpolation needs ONE gather instead of two — the per-corner mask is
     recovered as isfinite(corner). Rebuild after each fusion (one
     elementwise pass) — tracking runs many GN iterations against the same
-    grid, so the amortized saving is large (measured ~2.2 ms/iteration of
-    W-gather at 34k pixels on a 256^3 grid)."""
+    grid, so the W gather it removes from every iteration pays for it."""
     return jnp.where(W > 0, D, jnp.nan)
 
 
 def trilinear_from_corners(
     d_raw: jnp.ndarray, inb: jnp.ndarray, f: jnp.ndarray, dtype=jnp.float32,
-    off: jnp.ndarray = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Masked trilinear value + gradient from PRE-GATHERED corner values.
 
     d_raw (..., 8) in _OFFSETS order with NaN = unobserved (masked_view
     encoding), inb (..., 8) bool bounds mask, f (..., 3) fractional
-    position. Pure elementwise/reduction math — shared by the XLA path
-    (trilinear_with_grad_nan) and the Pallas fused-GN kernel
-    (tracking.pallas_gn), which guarantees their numeric parity.
+    position. Pure elementwise/reduction math.
     """
     mask = (inb & jnp.isfinite(d_raw)).astype(dtype)
     d = jnp.where(mask > 0, d_raw.astype(dtype), 0.0)
 
-    if off is None:
-        off = jnp.asarray(_OFFSETS, dtype=dtype)
-    # (``off`` is injectable because Pallas kernels may not capture array
-    # constants — tracking.pallas_gn passes it as a kernel input)
+    off = jnp.asarray(_OFFSETS, dtype=dtype)
     fax = off * f[..., None, :] + (1.0 - off) * (1.0 - f[..., None, :])
     w = fax[..., 0] * fax[..., 1] * fax[..., 2]
 

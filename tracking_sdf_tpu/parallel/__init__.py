@@ -6,7 +6,7 @@ onto a `jax.sharding.Mesh`:
 
 * grid SLABS along the voxel i-axis  <-> OpenMP voxel parallel-for (P2, P3)
 * per-shard (JᵀJ, Jᵀr) + `psum`      <-> per-thread partials + serial reduce (P1)
-* XLA collectives over ICI            <-> shared memory (P5)
+* XLA collectives (NCCL on GPUs)      <-> shared memory (P5)
 """
 from tracking_sdf_tpu.parallel.mesh import (
     make_mesh,

@@ -12,7 +12,7 @@ One mesh axis, ``'d'``, carries both parallel structures of the workload:
 
 Multi-host: `jax.distributed.initialize()` before `make_mesh()` makes
 `jax.devices()` span all hosts; nothing else changes (XLA routes the psum
-over ICI within a slice and DCN across slices).
+over the hosts' interconnect).
 """
 from __future__ import annotations
 

@@ -14,8 +14,8 @@ Replaces the reference's OpenMP parallel structures (SURVEY.md P1-P5) with
   continuous i coordinate). A one-plane halo fetched once per frame via
   `lax.ppermute` makes boundary-straddling trilinear stencils local, so the
   full grid is never gathered. Each device folds its owned pixels into
-  partial normal equations (JᵀJ ∈ 6x6, Jᵀr ∈ 6) with one MXU contraction and
-  a `psum` over ICI merges them exactly — the TPU-native version of the
+  partial normal equations (JᵀJ ∈ 6x6, Jᵀr ∈ 6) with one contraction and
+  a `psum` merges them (up to float32 summation order) — the mesh version of the
   per-thread A_array/B_array + serial reduce (camera_tracking.cpp:148-189).
   The 6x6 solve and pose update then run replicated on every device, keeping
   the Gauss-Newton `lax.while_loop` control flow identical across shards.
@@ -248,8 +248,7 @@ def sharded_track_frame_brickmajor(
     (nbi_local+1)-layer extent becomes a slab-local BrickMaskedView
     (grid/interp.py `mi`). Corner gathers, ownership partition, psum'd
     normal equations: identical to sharded_track_frame_masked — minus the
-    per-frame slab-dense Dm relayout that path's input costs (the ~700
-    ms/frame SPMD fuse tax at 256^3, BENCHMARKS.md batch C).
+    per-frame slab-dense Dm relayout that path's input costs.
 
     Returns fn(D_rows (NB, BV) sharded P('d', None), pose, points_cam
     (N, 3) replicated) -> TrackResult (replicated). The D leaf already
@@ -301,7 +300,7 @@ def sharded_fuse_frame(
 ):
     """Build the jitted SPMD fusion step: grid slabs local, image replicated,
     zero collectives (SURVEY.md P2). Returns fn(grid, pose, points, normals,
-    rgb) -> grid, donating the grid (updated in place in HBM)."""
+    rgb) -> grid, donating the grid (updated in place)."""
     n_dev = mesh.devices.size
     if params.m % n_dev != 0:
         raise ValueError(f"grid m={params.m} not divisible by mesh size {n_dev}")

@@ -37,8 +37,8 @@ class RealtimePacer:
         self._hz = float(hz)
         # frames delivered un-paced before the arrival clock starts: the
         # first TWO frames' processing carries the jit compiles (fusion
-        # on frame 1, tracking on frame 2 — tens of seconds each through
-        # a remote compile helper), which would otherwise expire the
+        # on frame 1, tracking on frame 2 — seconds each), which would
+        # otherwise expire the
         # whole stream before steady state is ever measured — a live
         # system warms its pipeline before the sensor starts
         self._warmup = max(int(warmup), 0)

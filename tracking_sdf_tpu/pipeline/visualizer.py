@@ -30,7 +30,7 @@ class MeshPublisher:
     to ``export_seconds * degrade_headroom`` so the publisher never
     queues unboundedly behind the device. The stretch is surfaced via
     ``effective_interval``/``degraded_cycles`` and a one-time warning —
-    the policy VERDICT r2 asked for instead of a silently-late 1 Hz.
+    instead of a silently-late 1 Hz.
     """
 
     def __init__(
@@ -62,7 +62,7 @@ class MeshPublisher:
         Takes a device COPY: the fusion path donates its input buffers, so a
         bare reference would be invalidated by the next frame ("Array has
         been deleted"). The copy is dispatched asynchronously and costs one
-        HBM pass — the snapshot-render design of SURVEY.md §5, replacing the
+        device-memory pass — the snapshot-render design of SURVEY.md §5, replacing the
         reference's intentionally racy shared pointers (sdf.cpp:47-49)."""
         import jax
         import jax.numpy as jnp

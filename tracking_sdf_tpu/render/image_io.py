@@ -39,6 +39,6 @@ def render_panels(result: RenderResult) -> np.ndarray:
 
 
 def save_render_png(result: RenderResult, path: str) -> None:
-    from PIL import Image
+    from tracking_sdf_tpu.data.png import write_png
 
-    Image.fromarray(render_panels(result)).save(path)
+    write_png(path, render_panels(result))

@@ -15,7 +15,7 @@ pair compiles once.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import jax.numpy as jnp
 
@@ -23,6 +23,25 @@ from tracking_sdf_tpu.config import GridParams, TrackingConfig
 from tracking_sdf_tpu.core.lie import Pose
 from tracking_sdf_tpu.grid.grid import TSDFGrid
 from tracking_sdf_tpu.tracking.gauss_newton import TrackResult, track_frame
+
+
+def pyramid_schedule(cfg: TrackingConfig, levels: Sequence[int],
+                     coarse_iterations: int = 10
+                     ) -> List[Tuple[int, TrackingConfig]]:
+    """(pixel stride, tracking config) per level, coarsest first.
+
+    ``levels`` are extra decimation factors multiplied onto
+    ``cfg.pixel_stride``, ending at 1 (= the reference's stride). Coarse
+    levels get capped iterations and no min-iteration floor (the floor
+    exists to make the FINE level re-optimize past the coarse level's
+    decimation-biased optimum — see TrackingConfig)."""
+    if not levels or levels[-1] != 1:
+        raise ValueError("levels must be non-empty and end at 1 "
+                         "(finest = cfg.pixel_stride)")
+    return [(cfg.pixel_stride * mult,
+             cfg if mult == 1 else cfg._replace(
+                 max_iterations=coarse_iterations, min_iterations=0))
+            for mult in levels]
 
 
 def track_frame_pyramid(
@@ -40,28 +59,18 @@ def track_frame_pyramid(
 ) -> Tuple[TrackResult, Tuple[TrackResult, ...]]:
     """Track one frame coarse-to-fine.
 
-    ``levels`` are extra decimation factors multiplied onto
-    ``cfg.pixel_stride``, coarsest first, ending at 1 (= the reference's
-    stride). Returns (finest-level result, per-level results).
+    ``levels``: see pyramid_schedule. Returns (finest-level result,
+    per-level results).
     """
-    if not levels or levels[-1] != 1:
-        raise ValueError("levels must be non-empty and end at 1 "
-                         "(finest = cfg.pixel_stride)")
+    schedule = pyramid_schedule(cfg, levels, coarse_iterations)
     if Dm is None and cfg.jacobian == "analytic":
         from tracking_sdf_tpu.grid.interp import masked_view
 
         Dm = masked_view(grid.D, grid.W)
     pose = pose0
     results = []
-    for li, mult in enumerate(levels):
-        stride = cfg.pixel_stride * mult
+    for stride, level_cfg in schedule:
         pts = points_img[::stride, ::stride].reshape(-1, 3)
-        # coarse levels: capped iterations, no min-iteration floor (the
-        # floor exists to make the FINE level re-optimize past the coarse
-        # level's decimation-biased optimum — see TrackingConfig)
-        level_cfg = cfg if mult == 1 else cfg._replace(
-            max_iterations=coarse_iterations, min_iterations=0
-        )
         res = track_frame(grid, pose, pts, params=params, cfg=level_cfg, Dm=Dm)
         pose = res.pose
         results.append(res)

@@ -1,4 +1,4 @@
-"""Profiling utilities — the reference's timing/tracing story, TPU-style.
+"""Profiling utilities — the reference's timing/tracing story.
 
 The reference brackets its frame callback with callgrind macros
 (sdf_reconstruction.cpp:26,76-79) and prints per-phase wall-clock times
